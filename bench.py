@@ -1,4 +1,4 @@
-"""Benchmark: end-to-end SLAM + kernel metrics on the local accelerator.
+"""Benchmark: end-to-end SLAM + kernel metrics on one GPU.
 
 Prints ONE JSON line:
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N, "extra": {...}}
@@ -8,23 +8,21 @@ descriptor → association → sliding-window BA → marginalisation → loop
 closure) on the reference-scale circuit benchmark (752x480 stereo @ 20 Hz,
 200 Hz IMU, 704 keypoints — the EuRoC operating point of
 config/euroc/okvis2.yaml:74-99).  Baseline: the reference runs real time at
-20 fps on 3 CPU threads, so vs_baseline = fps / 20.
+20 fps on 3 CPU threads, so vs_baseline = fps / 20.  Fails without a GPU.
 
 MEASUREMENT PROTOCOL (warm): VioPipeline.precompile() force-compiles (or
 persistent-cache-loads) every program the frame loop, loop-closure and
 background full-graph paths can dispatch BEFORE the first frame; the fps
 window additionally excludes `warmup_frames`.  The measured number
 therefore reflects the framework, not XLA's compiler — `cold_compile_s`
-in `extra` reports the one-off compile/load cost separately (round-4
-archived 3.88 fps cold vs 6.27 warm on identical code; this harness
-removes that ambiguity).
+in `extra` reports the one-off compile/load cost separately.
 
 `extra` carries the rest of the evidence the driver archives:
   * ate_online_m / ate_final_m, loop closures, landmark merges
   * cold_compile_s: init-time precompile wall (≈0 on a warm cache)
   * ba_iterations_per_s on the realtime window shape (vs the reference's
     10-iterations-in-35 ms Ceres budget)
-  * hamming_gbs: Pallas SWAR-popcount descriptor matching at database scale
+  * hamming_gbs: packed XOR-popcount descriptor matching at database scale
   * detect_ms: detection+description per 752x480 stereo frame
 """
 
@@ -46,7 +44,7 @@ def bench_ba():
 
     iters = 10
     p, cams = synthetic_window_problem(K=8, L=512, N=4096, dtype=jnp.float32)
-    cfg = gn.SolverConfig(max_iterations=iters, unroll=True)
+    cfg = gn.SolverConfig(max_iterations=iters)
     run = jax.jit(lambda prob: gn.optimize(prob, cams, cfg))
     out, cost = run(p)
     jax.block_until_ready(cost)
@@ -60,15 +58,15 @@ def bench_ba():
 
 
 def bench_hamming():
-    """Pallas Hamming kernel at loop-closure database scale: 704 query
-    descriptors vs 16384 database descriptors, 384 bits each."""
-    from okvis2x_tpu.ops import hamming_pallas
+    """Packed Hamming distance matrix at loop-closure database scale: 768
+    query descriptors (704 keypoints, padded) vs 16384 database
+    descriptors, 384 bits each."""
+    from okvis2x_tpu.frontend import matcher
 
     rng = np.random.default_rng(0)
-    # 704 keypoints padded to the 256-row kernel tile
     q = jnp.asarray(rng.integers(0, 2**32, (768, 12), dtype=np.uint32))
     db = jnp.asarray(rng.integers(0, 2**32, (16384, 12), dtype=np.uint32))
-    run = hamming_pallas.hamming_matrix_packed
+    run = jax.jit(matcher.hamming_matrix_packed)
     out = run(q, db)
     jax.block_until_ready(out)
     n_rep = 20
@@ -138,6 +136,9 @@ def main():
     from okvis2x_tpu.utils import jaxconfig
 
     jaxconfig.setup()
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"bench.py needs a GPU; JAX runs on {dev.platform}")
 
     slam = bench_slam()
     ba_its = bench_ba()
@@ -154,14 +155,17 @@ def main():
                         "window BA + loop closure)",
                 "vs_baseline": round(fps / BASELINE_FPS, 3),
                 "extra": {
+                    "device": {"platform": dev.platform,
+                               "kind": dev.device_kind,
+                               "count": len(jax.devices())},
+                    "render_s": slam["render_s"],
                     "ms_per_frame_p50": slam["ms_per_frame_p50"],
                     "ms_per_frame_p90": slam["ms_per_frame_p90"],
                     # compile/cache-load cost paid ONCE at init by
                     # VioPipeline.precompile() — everything the frame loop
                     # and loop-closure paths dispatch is compiled before
                     # the measured window, so the fps above reflects the
-                    # framework, not XLA's compiler (round-4 judge item:
-                    # the archived number was cold-compile-contaminated)
+                    # framework, not XLA's compiler
                     "cold_compile_s": slam.get("precompile_s"),
                     "ate_online_m": slam["ate_online_m"],
                     "ate_final_m": slam["ate_final_m"],

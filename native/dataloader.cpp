@@ -4,7 +4,7 @@
 // Native counterpart of the reference's C++ dataset-reader runtime
 // (okvis_multisensor_processing/src/DatasetReader.cpp streaming thread,
 // threadsafe::Queue at okvis_multisensor_processing/include/okvis/
-// threadsafe/ThreadsafeQueue.hpp:41-212).  The TPU compute path consumes
+// threadsafe/ThreadsafeQueue.hpp:41-212).  The device compute path consumes
 // host-resident uint8 frames; this library keeps the host side off the
 // Python GIL: a worker pool decodes PNG/PGM images ahead of the consumer and
 // delivers them strictly in sequence order through a bounded reorder ring.

@@ -3,7 +3,7 @@
 // Native counterpart of supereight2's map->mesh() marching cubes used by the
 // reference (okvis_multisensor_processing/src/SubmappingInterface.cpp:935) —
 // mesh extraction is host-side, latency-insensitive work that doesn't belong
-// on the TPU, so it lives in C++ like the reference's.
+// on the accelerator, so it lives in C++ like the reference's.
 //
 // Marching tetrahedra (6 tets per cube) trades ~2x triangle count for
 // table-free correctness.  C ABI for ctypes.

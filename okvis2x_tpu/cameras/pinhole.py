@@ -51,7 +51,7 @@ def make_pinhole(
     fx, fy, cx, cy, width, height, model=dist.RADTAN, dist_params=(), dtype=jnp.float64
 ) -> Camera:
     # resolve the dtype ONCE (f64 only under x64, i.e. CPU hosts; f32 on
-    # TPU) so the precision choice is explicit, not a truncation warning
+    # the GPU) so the precision choice is explicit, not a truncation warning
     dtype = jax.dtypes.canonicalize_dtype(dtype)
     p = jnp.asarray(dist_params, dtype=dtype)
     if p.size == 0:

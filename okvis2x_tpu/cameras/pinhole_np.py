@@ -3,7 +3,7 @@
 Host orchestration (outlier gating, epipolar pre-gating, landmark
 projection checks) calls camera projection on small, dynamically-shaped
 index sets.  Running the jnp versions there executes op-by-op on the
-accelerator — ~1 ms/dispatch on a remote TPU backend — and every new shape
+accelerator, one dispatch and sync each, and every new shape
 compiles a fresh program.  These numpy implementations mirror
 cameras/pinhole.py exactly (property-tested in
 tests/test_cameras.py::test_numpy_camera_twin_matches_jax); the jnp

@@ -89,7 +89,7 @@ def quat_to_matrix(q: jax.Array) -> jax.Array:
 
 def matrix_to_quat(m: jax.Array) -> jax.Array:
     """Rotation matrix -> quaternion [x,y,z,w], branch-free (Shepperd's method
-    expressed with jnp.where so it jits on TPU)."""
+    expressed with jnp.where so it jits without branches)."""
     m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
     m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]

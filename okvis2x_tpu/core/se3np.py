@@ -2,9 +2,9 @@
 
 The host-side orchestration (estimator bookkeeping, trajectory queries,
 pose-graph surgery) composes poses one at a time.  Calling the jnp
-versions there executes each tiny op eagerly on the accelerator — on a
-remote TPU backend every such op is a ~1 ms dispatch round-trip, and the
-per-frame host path was measured at 600-3700 eager dispatches/frame.
+versions there executes each tiny op eagerly on the accelerator, one
+dispatch and sync each, and the per-frame host path was counted at
+600-3700 eager dispatches/frame.
 These numpy implementations keep host math on the host; the jnp versions
 in core/se3.py remain the single source of truth inside jitted programs.
 

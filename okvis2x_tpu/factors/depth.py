@@ -1,6 +1,6 @@
 """Per-keypoint landmark-depth factor.
 
-TPU-native counterpart of the reference's `okvis::ceres::DepthErrorT<ONESIDED>`
+JAX counterpart of the reference's `okvis::ceres::DepthErrorT<ONESIDED>`
 (okvis_ceres/include/okvis/ceres/DepthError.hpp:36-47,120-180): a 1-dof
 residual  r = s · (d_meas − z_C)  on the depth of a landmark in the camera
 frame, attached to (pose T_WS, homogeneous point hp_W, extrinsics T_SC).

@@ -4,7 +4,7 @@ Replaces the reference's brisk `BriskDescriptorExtractor` (48-byte / 384-bit
 FBrisk descriptors, see okvis_frontend/include/DBoW2/FBrisk.hpp and
 `setExtractionDirection` usage at okvis_frontend/src/Frontend.cpp:233-238).
 
-Design, TPU-first:
+Design:
   * a fixed sampling pattern of 60 points on concentric rings (generated
     deterministically at import, BRISK-like geometry) is rotated per keypoint
     by the *extraction direction* — supplied from projected gravity like the
@@ -13,7 +13,7 @@ Design, TPU-first:
     pyramid (one vectorised gather per frame, no per-keypoint loops);
   * 384 fixed comparison pairs produce the bits; descriptors are kept both
     bit-packed (N, 12) uint32 for storage and as ±1 bfloat16 (N, 384) for
-    MXU Hamming matching (matcher.py).
+    matmul Hamming matching (matcher.py).
 """
 
 from __future__ import annotations
@@ -56,10 +56,11 @@ def _make_pattern():
 
 PATTERN_PTS, PAIR_A, PAIR_B = _make_pattern()
 
-# constant one-hot pair-selection matrices: selecting columns by constant
-# index arrays (vals[:, PAIR_A]) lowers to a slow TPU gather; as (60, 384)
-# ±one-hot matmuls the whole "compare all pairs" step runs on the MXU as
-# vals @ (A - B) followed by a sign test.
+# constant one-hot pair-selection matrices: instead of selecting columns by
+# constant index arrays (vals[:, PAIR_A]), the whole "compare all pairs"
+# step is one (60, 384) ±one-hot matmul, vals @ (A - B), followed by a
+# sign test (chosen where gathers were slow; untimed against the gather on
+# the H100).
 _PAIR_DIFF = np.zeros((60, DESC_BITS), np.float32)
 _PAIR_DIFF[np.asarray(PAIR_A), np.arange(DESC_BITS)] += 1.0
 _PAIR_DIFF[np.asarray(PAIR_B), np.arange(DESC_BITS)] -= 1.0
@@ -87,9 +88,8 @@ PACK_W_HI = jnp.asarray(_W_HI)
 def _bilinear(img: jax.Array, xy: jax.Array) -> jax.Array:
     """Bilinear sample img (H, W) at xy (..., 2) in (x, y) pixel coords.
 
-    Flattened 1-D gathers with mode='clip': a 2-D fancy-index gather lowers
-    to a slow general gather on TPU, while 1-D takes with in-bounds indices
-    hit the fast path."""
+    Flattened 1-D gathers with mode='clip' in place of a 2-D fancy-index
+    gather."""
     H, W = img.shape
     x = jnp.clip(xy[..., 0], 0.0, W - 1.001)
     y = jnp.clip(xy[..., 1], 0.0, H - 1.001)
@@ -112,13 +112,14 @@ def _bilinear(img: jax.Array, xy: jax.Array) -> jax.Array:
 
 
 def _bilinear_mxu(img: jax.Array, xy: jax.Array) -> jax.Array:
-    """Bilinear sampling as two MXU contractions (one-hot interpolation
-    weights), for large static sample sets.
+    """Bilinear sampling as two matmul contractions (one-hot
+    interpolation weights), for large static sample sets.
 
-    Random-position gathers serialise on the TPU (~40 ms for 42k samples at
-    752x480); expressing the same bilinear form as
-    ``sum((Y_w @ img) * X_w, -1)`` with sparse-as-dense one-hot weight
-    matrices runs in ~1 ms on the MXU.  xy is (..., 2); returns (...)."""
+    Expresses the bilinear form as ``sum((Y_w @ img) * X_w, -1)`` with
+    sparse-as-dense one-hot weight matrices instead of random-position
+    gathers, which serialised on the backend this was written for (untimed
+    against the gather form on the H100).  xy is (..., 2); returns
+    (...)."""
     H, W = img.shape
     shape = xy.shape[:-1]
     xy2 = xy.reshape(-1, 2)
@@ -145,8 +146,7 @@ def _bilinear_mxu(img: jax.Array, xy: jax.Array) -> jax.Array:
 
 
 def _smooth(img: jax.Array) -> jax.Array:
-    # separable shift-and-add gaussian: single-channel lax.conv lowers
-    # poorly on TPU (see frontend/detector.py::_conv2)
+    # separable shift-and-add gaussian (see frontend/detector.py::_conv2)
     from okvis2x_tpu.frontend.detector import _gauss5
 
     return _gauss5(img)
@@ -176,8 +176,8 @@ def extract(
     sample_xy = uv[:, None, :] + offsets  # (N, 60, 2)
     vals = _bilinear_mxu(img, sample_xy)  # (N, 60)
 
-    # all 384 comparisons as one MXU matmul against the constant ±one-hot
-    # pair-difference matrix (column gathers serialise on TPU)
+    # all 384 comparisons as one matmul against the constant ±one-hot
+    # pair-difference matrix
     diff = jax.lax.dot_general(
         vals, PAIR_DIFF, (((1,), (0,)), ((), ())),
         preferred_element_type=jnp.float32,

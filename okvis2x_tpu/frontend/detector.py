@@ -1,13 +1,13 @@
 """Multi-scale Harris keypoint detection.
 
-TPU-native replacement for the reference's BRISK/AGAST detector with
+JAX replacement for the reference's BRISK/AGAST detector with
 Harris-scored uniformity suppression (reference: okvis_frontend/src/
 Frontend.cpp:2637 `initialiseBriskFeatureDetectors`, brisk submodule).
 
 Design: everything is dense, static-shape tensor work that XLA fuses:
   * image pyramid by 2x average pooling (`octaves` levels);
   * Harris corner response per level from Sobel structure tensors —
-    convolutions sized for the VPU/MXU;
+    small static convolutions;
   * 3x3 non-max suppression via max-pooling comparison;
   * spatial uniformity via per-cell top-k (grid cells approximate the
     reference's uniformity-radius suppression) followed by global top-N —
@@ -39,9 +39,10 @@ import numpy as _np
 
 def _conv2(img: jax.Array, kernel) -> jax.Array:
     """Same-padding 2D convolution of a (H, W) image by a SMALL STATIC
-    kernel, as shift-and-add: `lax.conv` of a single-channel image lowers
-    poorly on TPU (~50 ms/frame measured on the remote runtime), while
-    statically-weighted shifted adds are pure VPU elementwise work."""
+    kernel, as shift-and-add: statically-weighted shifted adds are pure
+    elementwise work that fuses, where a single-channel `lax.conv` lowered
+    poorly on the backend this was written for (untimed against `lax.conv`
+    on the H100)."""
     k = _np.asarray(kernel, _np.float64)
     kh, kw = k.shape
     ph, pw = kh // 2, kw // 2
@@ -175,9 +176,9 @@ def detect(
         inb = (ys >= b) & (ys < h - b) & (xs >= b) & (xs < w - b)
         resp = jnp.where(inb, resp, 0.0)
 
-        # spatial uniformity: top-1 per fine cell (a reduce, not a sort —
-        # lax.top_k over all cell windows dominated the whole frontend on
-        # TPU).  Fine cells of cell/ceil(sqrt(per_cell)) keep roughly the
+        # spatial uniformity: top-1 per fine cell (a reduce, not a sort
+        # over all cell windows).  Fine cells of cell/ceil(sqrt(per_cell))
+        # keep roughly the
         # same per-area keypoint budget as the old per-cell top-k.
         cf = max(int(cell / max(np_ceil_sqrt(per_cell), 1)), 4)
         ch, cw = h // cf, w // cf

@@ -1,16 +1,20 @@
-"""Descriptor matching as MXU matmuls.
+"""Descriptor matching over whole distance matrices.
 
 Replaces the reference's multithreaded Hamming matching loops
 (okvis_frontend/src/Frontend.cpp:1745 `matchToMapByThread`: strided keypoint
-loops with per-pair popcount) with the TPU-native formulation:
+loops with per-pair popcount) with two dense formulations:
 
-    descriptors as ±1 vectors  =>  hamming(a, b) = (BITS - a·b) / 2
+  * frame-to-frame matching on unpacked descriptors as ±1 vectors,
 
-so an (N, 384) x (384, M) bfloat16 matmul computes every pairwise Hamming
-distance at once on the MXU — the 60-threshold, best-match and ratio logic
-become argmin/top-k over the distance matrix.  Invalid descriptors are 0
-rows/cols whose "distance" maps to BITS/2 (384/2 = 192), far above any
-acceptance threshold (reference threshold: 60 bits).
+        hamming(a, b) = (BITS - a·b) / 2,
+
+    one (N, 384) x (384, M) bfloat16 matmul for every pairwise distance —
+    the 60-threshold, best-match and ratio logic become argmin/top-k over
+    the distance matrix.  Invalid descriptors are 0 rows/cols whose
+    "distance" maps to BITS/2 (384/2 = 192), far above any acceptance
+    threshold (reference threshold: 60 bits);
+  * place-recognition matching on bit-packed descriptors (12 uint32 words),
+    XOR + population count reduced over the words (`hamming_matrix_packed`).
 """
 
 from __future__ import annotations
@@ -38,6 +42,37 @@ def hamming_matrix(pm1_a: jax.Array, pm1_b: jax.Array) -> jax.Array:
         preferred_element_type=jnp.float32,
     )
     return 0.5 * (DESC_BITS - dots)
+
+
+def hamming_matrix_packed(packed_a: jax.Array, packed_b: jax.Array) -> jax.Array:
+    """(NA, NB) int32 Hamming distances of bit-packed (N, 12) uint32
+    descriptors: XOR + population count, summed over the words.  Words go
+    on the leading axis, so XLA fuses everything into one reduction over
+    it (on an H100 a third of the time of reducing over a trailing word
+    axis, and faster than the ±1 bf16 matmul form)."""
+    x = packed_a.T[:, :, None] ^ packed_b.T[:, None, :]
+    return jnp.sum(jax.lax.population_count(x), axis=0, dtype=jnp.int32)
+
+
+def match_packed_mutual(
+    packed_a: jax.Array,  # (NA, 12) uint32
+    valid_a: jax.Array,  # (NA,) bool
+    packed_b: jax.Array,  # (NB, 12) uint32
+    valid_b: jax.Array,  # (NB,) bool
+    max_dist: float = 60.0,
+) -> Matches:
+    """Mutual best matches A<->B under the distance gate, straight from
+    packed descriptors (the place-recognition path).  Invalid rows and
+    columns never match."""
+    D = hamming_matrix_packed(packed_a, packed_b)
+    big = jnp.int32(DESC_BITS + 1)
+    D = jnp.where(valid_a[:, None] & valid_b[None, :], D, big)
+    idx = jnp.argmin(D, axis=1)
+    d = jnp.take_along_axis(D, idx[:, None], axis=1)[:, 0]
+    back = jnp.argmin(D, axis=0)
+    mutual = back[idx] == jnp.arange(D.shape[0])
+    ok = valid_a & valid_b[idx] & mutual & (d <= max_dist)
+    return Matches(idx_b=idx.astype(jnp.int32), dist=d, valid=ok)
 
 
 def match(

@@ -2,7 +2,7 @@
 
 Replaces the reference's opengv-based RANSAC glue (okvis_frontend
 `runRansac3d2d` Frontend.cpp:2449, `runRansac2d2d` :2520, the opengv
-adapters, and `verifyRecognisedPlace` :258) with TPU-native batched
+adapters, and `verifyRecognisedPlace` :258) with batched
 hypothesis scoring: all hypotheses are solved and scored at once (matmuls /
 batched 3x3 linear algebra) instead of the sequential sample-test loop —
 RANSAC as one fused device program.

@@ -1,6 +1,6 @@
 """Background full-graph optimisation (dual-graph architecture).
 
-TPU-native equivalent of the reference's dual-graph design: `ViSlamBackend`
+JAX equivalent of the reference's dual-graph design: `ViSlamBackend`
 owns a realtime sliding-window graph and a complete-history `fullGraph_`
 optimised in a background thread, coordinated through the atomics
 `needsFullGraphOptimisation_` / `isLoopClosing_` / `isLoopClosureAvailable_`

@@ -1,6 +1,6 @@
 """Observation → relative-pose-edge marginalisation (TwoPoseGraphError).
 
-TPU-native equivalent of the reference's `ceres::TwoPoseGraphError::compute`
+JAX equivalent of the reference's `ceres::TwoPoseGraphError::compute`
 (okvis_ceres/src/TwoPoseGraphError.cpp:162-260): summarise the reprojection
 information of landmarks co-observed by two keyframes into a 6-dof
 relative-pose edge, so old keyframes can leave the realtime window at O(1)

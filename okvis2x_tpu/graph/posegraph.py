@@ -66,7 +66,7 @@ def optimize_pose_graph(
     """Pure pose-graph GN/LM: returns optimised (K, 7) poses."""
     import jax
 
-    # resolve f64-request → best available (f32 on TPU) once, silently
+    # resolve f64-request → best available (f32 on the GPU) once, silently
     dtype = jax.dtypes.canonicalize_dtype(dtype)
     K0 = T_WS.shape[0]
     R0 = len(edges_i)
@@ -76,7 +76,7 @@ def optimize_pose_graph(
     # above 256 nodes): a growing pose graph crosses at most ONE bucket
     # boundary over a whole session, so at most one background compile can
     # land mid-run — and precompile() covers both up front.  The (6K)^2
-    # dense solve at K=256 is still tiny for the MXU, so padding 70 nodes
+    # dense solve at K=256 is still tiny for the device, so padding 70 nodes
     # to 256 costs microseconds, not a recompile.
     K = 64 if K0 <= 64 else 256 * ((K0 + 255) // 256)
     R = 2 * K if R0 <= 2 * K else 256 * ((R0 + 255) // 256)

@@ -1,6 +1,6 @@
 """IMU preintegration: propagation, covariance, and bias Jacobians.
 
-TPU-native replacement for the reference's `ceres::ImuError` machinery
+JAX replacement for the reference's `ceres::ImuError` machinery
 (okvis_ceres/src/ImuError.cpp:258 `redoPreintegration`, :537 static
 `propagation`).  Same mathematical model — midpoint integration of the
 standard IMU kinematics with additive Gaussian noise on gyro/accel and

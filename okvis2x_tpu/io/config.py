@@ -13,7 +13,6 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
-import yaml
 
 from okvis2x_tpu.cameras import distortion as dist
 from okvis2x_tpu.cameras import pinhole
@@ -177,6 +176,8 @@ def _T_from_mat44(vals) -> np.ndarray:
 
 
 def _load_yaml(path: str) -> dict:
+    import yaml  # only config files need PyYAML, not the pipeline
+
     with open(path) as f:
         text = f.read()
     lines = [l for l in text.splitlines() if not l.startswith("%YAML")]

@@ -12,6 +12,8 @@ from typing import Optional
 
 import numpy as np
 
+from okvis2x_tpu.io.png import write_png
+
 
 class DatasetWriter:
     def __init__(self, out_dir: str, num_cams: int = 2, t0_ns: Optional[int] = None):
@@ -41,22 +43,16 @@ class DatasetWriter:
         )
 
     def add_images(self, t: float, images):
-        from PIL import Image
-
         ns = self._ns(t)
         for c, img in enumerate(images[: self.num_cams]):
             name = f"{ns}.png"
             arr = np.asarray(img)
             if arr.dtype != np.uint8:
                 arr = np.clip(arr * 255, 0, 255).astype(np.uint8)
-            Image.fromarray(arr).save(
-                os.path.join(self.root, f"cam{c}", "data", name)
-            )
+            write_png(os.path.join(self.root, f"cam{c}", "data", name), arr)
             self._cams[c].write(f"{ns},{name}\n")
 
     def add_depth(self, t: float, depth_m: np.ndarray):
-        from PIL import Image
-
         if self._depth is None:
             os.makedirs(os.path.join(self.root, "depth0", "data"), exist_ok=True)
             self._depth = open(
@@ -66,7 +62,7 @@ class DatasetWriter:
         ns = self._ns(t)
         name = f"{ns}.png"
         mm = np.clip(depth_m * 1000.0, 0, 65535).astype(np.uint16)
-        Image.fromarray(mm).save(os.path.join(self.root, "depth0", "data", name))
+        write_png(os.path.join(self.root, "depth0", "data", name), mm)
         self._depth.write(f"{ns},{name}\n")
 
     def add_lidar_points(self, t_points, pts, intensity=None):

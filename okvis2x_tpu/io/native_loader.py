@@ -4,7 +4,8 @@ The reference keeps dataset streaming in C++ (DatasetReader's reader thread +
 threadsafe::Queue, okvis_multisensor_processing/src/DatasetReader.cpp); here
 the same role is played by a libpng-backed worker pool that decodes frames
 ahead of the consumer off the GIL and delivers them strictly in order.
-Falls back to PIL transparently when the toolchain is unavailable.
+The library is built from source at first use; without a C++ toolchain or
+libpng every decode falls back to the standard-library codec (io/png.py).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import subprocess
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from okvis2x_tpu.io import png
 
 _DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
 _SRC = os.path.join(_DIR, "dataloader.cpp")
@@ -27,22 +30,34 @@ _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int)
 
 
+def build_shared_library(src: str, so: str, flags: Sequence[str]) -> None:
+    """Compile `src` into the shared library `so` unless it is newer than
+    the source.  The compiler writes a private temporary file that is then
+    renamed into place, so concurrent builders (parallel test workers) never
+    load a half-written library."""
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        return
+    tmp = f"{so}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(
+            ["g++", "-shared", "-fPIC", "-o", tmp, src, *flags],
+            check=True, capture_output=True,
+        )
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def _load() -> Optional[ctypes.CDLL]:
     global _LIB, _LOAD_FAILED
     if _LIB is not None or _LOAD_FAILED:
         return _LIB
     try:
-        if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(
-            _SRC
-        ):
-            subprocess.run(
-                [
-                    "g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                    "-o", _SO, _SRC, "-lpng", "-lz", "-lpthread",
-                ],
-                check=True,
-                capture_output=True,
-            )
+        build_shared_library(
+            _SRC, _SO,
+            ["-O3", "-std=c++17", "-lpng", "-lz", "-lpthread"],
+        )
         lib = ctypes.CDLL(_SO)
         lib.dl_decode.restype = ctypes.c_int
         lib.dl_decode.argtypes = [
@@ -59,7 +74,8 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.dl_close.restype = None
         lib.dl_close.argtypes = [ctypes.c_void_p]
         _LIB = lib
-    except Exception:
+    except (OSError, subprocess.CalledProcessError):
+        # no compiler, no libpng headers, or an unloadable library
         _LOAD_FAILED = True
     return _LIB
 
@@ -68,25 +84,15 @@ def available() -> bool:
     return _load() is not None
 
 
-def _pil_decode(path: str) -> np.ndarray:
-    from PIL import Image
-
-    img = Image.open(path)
-    if img.mode not in ("L", "I;16"):
-        img = img.convert("L")
-    arr = np.asarray(img)
-    if arr.dtype != np.uint8:  # 16-bit grayscale
-        arr = (arr.astype(np.uint32) * 255 // max(int(arr.max()), 1)).astype(
-            np.uint8
-        )
-    return arr
+def _py_decode(path: str) -> np.ndarray:
+    return png.to_gray8(png.read_image(path))
 
 
 def decode_image(path: str, max_bytes: int = 1 << 24) -> np.ndarray:
     """Decode one image file to a (H, W) uint8 array."""
     lib = _load()
     if lib is None:
-        return _pil_decode(path)
+        return _py_decode(path)
     buf = np.empty(max_bytes, np.uint8)
     w = ctypes.c_int()
     h = ctypes.c_int()
@@ -97,7 +103,7 @@ def decode_image(path: str, max_bytes: int = 1 << 24) -> np.ndarray:
     if rc == -2:
         return decode_image(path, max_bytes=w.value * h.value)
     if rc != 0:
-        return _pil_decode(path)
+        return _py_decode(path)
     return buf[: w.value * h.value].reshape(h.value, w.value).copy()
 
 
@@ -137,7 +143,7 @@ class ImagePrefetcher:
         path = self._paths[self._i]
         self._i += 1
         if self._handle is None:
-            return _pil_decode(path)
+            return _py_decode(path)
         buf = np.empty(self._max_bytes, np.uint8)
         w = ctypes.c_int()
         h = ctypes.c_int()
@@ -147,7 +153,7 @@ class ImagePrefetcher:
         )
         if rc != 0:
             # decode failure for this frame: fall back for it alone
-            return _pil_decode(path)
+            return _py_decode(path)
         return buf[: w.value * h.value].reshape(h.value, w.value).copy()
 
     def close(self):

@@ -1,6 +1,6 @@
 """Minimal pure-Python ROS2 bag (sqlite3 + CDR) reader/writer.
 
-TPU-native replacement for the reference's `okvis_ros2` `RosbagReader`
+JAX replacement for the reference's `okvis_ros2` `RosbagReader`
 (okvis_ros2/src/RosbagReader.cpp): streams sensor messages out of a
 rosbag2 directory (metadata.yaml + *.db3) without any ROS2 installation,
 decoding the CDR-serialized sensor_msgs the OKVIS2-X node consumes

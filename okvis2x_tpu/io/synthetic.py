@@ -517,7 +517,7 @@ def generate(
     every viewpoint → loop closures), sized via `density` dots/m²."""
     from okvis2x_tpu.cameras import pinhole
     from okvis2x_tpu.imu.preintegration import ImuParams
-    from PIL import Image
+    from okvis2x_tpu.io.png import write_png
 
     imu = ImuParams()
     rng = np.random.default_rng(seed + 1)
@@ -599,8 +599,9 @@ def generate(
                     )
                     if with_classmap and c == 0:
                         img, cmap = out
-                        Image.fromarray(cmap).save(
-                            os.path.join(root, "seg0", "data", f"{ns}.png")
+                        write_png(
+                            os.path.join(root, "seg0", "data", f"{ns}.png"),
+                            cmap,
                         )
                         seg_csv.write(f"{ns},{ns}.png\n")
                     else:
@@ -610,9 +611,9 @@ def generate(
                         cam_np, T_WC, pts, bright, radius, seed=i * 2 + c
                     )
                 name = f"{ns}.png"
-                Image.fromarray((img * 255).astype(np.uint8)).save(
+                write_png(
                     os.path.join(root, f"cam{c}", "data", name),
-                    compress_level=1,
+                    (img * 255).astype(np.uint8),
                 )
                 f.write(f"{ns},{name}\n")
                 if progress and i % 200 == 0:
@@ -636,9 +637,7 @@ def generate(
                 dimg = render_depth(cam, T_WC, pts)
                 name = f"{ns}.png"
                 arr = np.clip(dimg * 1000.0, 0, 65535).astype(np.uint16)
-                Image.fromarray(arr).save(
-                    os.path.join(root, "depth0", "data", name)
-                )
+                write_png(os.path.join(root, "depth0", "data", name), arr)
                 f.write(f"{ns},{name}\n")
 
     # ground truth

@@ -138,10 +138,9 @@ class XDataset(EurocDataset):
 
     def load_depth(self, path: str, scale: float = 1e-3) -> np.ndarray:
         """16-bit PNG depth in millimetres -> float32 metres."""
-        from PIL import Image
+        from okvis2x_tpu.io.png import read_image
 
-        im = Image.open(path)
-        return np.asarray(im, dtype=np.float32) * scale
+        return read_image(path).astype(np.float32) * scale
 
     def lidar_sweeps(self) -> Iterator[LidarSweep]:
         """Group the point stream into fixed-duration sweeps."""

@@ -5,7 +5,7 @@ reference's 25.6 m submap at 0.025 m (config/euroc/se2.yaml:30-32) needs
 1024^3, which is 8 GB dense.  supereight2 solves this with a multi-res
 octree (integration at okvis_multisensor_processing/src/
 SubmappingInterface.cpp:771-902, block allocation in se::MapIntegrator);
-the TPU-native equivalent is a two-level structure built entirely from
+the JAX equivalent is a two-level structure built entirely from
 gathers/scatters:
 
   * a dense **brick table** (T^3 int32, T = dim/brick): brick coord ->

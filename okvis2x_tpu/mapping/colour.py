@@ -1,6 +1,6 @@
 """Per-voxel colour for occupancy submaps.
 
-TPU-native counterpart of the reference's `se::OccupancyColIdMap`
+JAX counterpart of the reference's `se::OccupancyColIdMap`
 (okvis_mapping/include/okvis/mapTypedefs.hpp:19-26, built with
 USE_COLIDMAP) and the camera-colour warp into depth integration
 (okvis_multisensor_processing/src/SubmappingInterface.cpp:848-888):

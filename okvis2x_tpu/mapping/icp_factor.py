@@ -128,7 +128,7 @@ def make_alignment_edge(
     strength) for the estimator's rel_* factors — how submap alignment
     terms enter the realtime problem (≙ addSubmapAlignmentConstraints
     creating per-point SubmapIcpError terms; we aggregate them into one
-    Gaussian edge per submap pair, the TPU-friendly granularity)."""
+    Gaussian edge per submap pair, a static-shape granularity)."""
     r, Ja, Jb, use = linearize_icp(sm, cfg, T_WA, T_WB, p_B, valid, sigma)
     m = use.astype(r.dtype)
     # information in relative coordinates: J wrt delta_rel equals J_b mapped

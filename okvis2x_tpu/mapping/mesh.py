@@ -9,10 +9,11 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from typing import Optional
 
 import numpy as np
+
+from okvis2x_tpu.io.native_loader import build_shared_library
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -24,12 +25,8 @@ def _load() -> ctypes.CDLL:
     global _LIB
     if _LIB is not None:
         return _LIB
-    src = os.path.abspath(_SRC)
     so = os.path.abspath(_SO)
-    if (not os.path.exists(so)) or os.path.getmtime(so) < os.path.getmtime(src):
-        subprocess.check_call(
-            ["g++", "-O2", "-shared", "-fPIC", "-o", so, src]
-        )
+    build_shared_library(os.path.abspath(_SRC), so, ["-O2"])
     lib = ctypes.CDLL(so)
     lib.mesh_marching_tetrahedra.restype = ctypes.c_int64
     lib.mesh_marching_tetrahedra.argtypes = [

@@ -1,6 +1,6 @@
 """Occupancy submaps: dense log-odds voxel grids on device.
 
-TPU-native replacement for supereight2's octree occupancy maps as used by the
+JAX replacement for supereight2's octree occupancy maps as used by the
 reference (se::OccupancyMap<se::Res::Multi>, okvis_mapping/include/okvis/
 mapTypedefs.hpp; integration at okvis_multisensor_processing/src/
 SubmappingInterface.cpp:771-902; field interpolation helpers

@@ -12,7 +12,7 @@ at D fronto-parallel depth hypotheses via the homography
 score photometric cost (box-aggregated absolute difference on normalised
 images), average over sources, soft-argmin depth + curvature sigma.  All
 static-shape: one (D, H, W) volume per source, gathers for the warps —
-TPU-friendly, training-free.
+training-free.
 """
 
 from __future__ import annotations

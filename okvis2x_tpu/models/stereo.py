@@ -8,7 +8,7 @@ for the DepthError factors and occupancy integration.
 Two engines:
   * `census_stereo` — classical census-transform block matching with cost
     aggregation, WTA + parabolic subpixel, left-right consistency and a
-    curvature-based sigma.  Deterministic, training-free, and TPU-shaped
+    curvature-based sigma.  Deterministic, training-free, and static-shaped
     (shifts + convolutions + argmin over a static disparity axis), so the
     depth pipeline is fully functional without downloadable weights.
   * `StereoNet` (stereo_net.py) — a compact learned correlation-volume

@@ -6,8 +6,8 @@ CMakeLists.txt:90-150, consumed at Stereo2DepthProcessor.cpp:155-202):
 a feature CNN, a correlation cost volume over disparities, 2-D aggregation,
 soft-argmin disparity regression and a log-variance head.
 
-Written in flax with bf16-friendly convolutions (channels sized for the
-MXU).  Weights are randomly initialised here — the environment has no
+Written in flax with bf16-friendly convolutions (channels sized for
+matrix units).  Weights are randomly initialised here — the environment has no
 network access to fetch pretrained checkpoints — so accuracy-path runs use
 models/stereo.census_stereo; this module provides the trainable family and
 the exact I/O contract (left, right) -> (disparity, sigma) for when weights

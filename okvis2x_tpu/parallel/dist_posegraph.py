@@ -14,8 +14,8 @@ never materialises them:
   * Gauss-Newton steps solve (J^T J + lam I) dx = -J^T r by preconditioned
     conjugate gradients with matrix-free Hessian-vector products:
     edge gather -> 6x6 block multiplies -> segment-sum scatter, `psum`'d
-    over ICI — per-iteration cost O(E/D * 36) flops and one (K,6)-vector
-    all-reduce;
+    across the mesh — per-iteration cost O(E/D * 36) flops and one
+    (K,6)-vector all-reduce;
   * block-Jacobi preconditioner: per-pose 6x6 Hessian diagonal blocks
     (psum'd once per outer iteration, batch-inverted);
   * Levenberg-Marquardt accept/reject on the exact quadratic edge cost
@@ -203,8 +203,8 @@ def optimize_pose_graph_pcg(
     """Scalable pose-graph GN/LM: returns optimised (K, 7) poses + cost.
 
     With `mesh` (1-D, axis "obs") the edge set is sharded across devices and
-    the per-iteration reductions ride ICI; without, the same matrix-free
-    program runs on one device (still O(E) memory instead of O((6K)^2))."""
+    the per-iteration reductions are all-reduces; without, the same
+    matrix-free program runs on one device (still O(E) memory instead of O((6K)^2))."""
     dtype = jax.dtypes.canonicalize_dtype(dtype)
     E = len(edges_i)
     if edges_valid is None:

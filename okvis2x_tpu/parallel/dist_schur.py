@@ -1,4 +1,4 @@
-"""Distributed bundle adjustment: Schur-complement reduction over ICI.
+"""Distributed bundle adjustment: Schur-complement reduction across the mesh.
 
 The multi-device version of solver/gauss_newton.py — the capability the
 reference lacks entirely (its BA is single-process Ceres with 3 CPU threads,
@@ -8,7 +8,7 @@ config/euroc/okvis2.yaml realtime_num_threads).  Layout:
     linearises its shard of reprojection factors (the dominant FLOPs);
   * per-device partial normal equations; the reduced camera system
     H_ff (P x P, P = K*15 + C*6, small) and the landmark blocks
-    (H_ll, b_l, W) are `psum`'d over ICI;
+    (H_ll, b_l, W) are `psum`'d across the mesh;
   * IMU / prior / relative-edge factors are tiny and computed redundantly
     on every device (identical inputs -> identical outputs, no collective);
   * the dense reduced solve is replicated (cheap), landmark back-substitution
@@ -272,16 +272,7 @@ def optimize_distributed(
         lam0 = jnp.asarray(cfg.init_lambda, p_local.T_WS.dtype)
         cost0 = _cost_local(p_local, cams, cfg)
         carry = (p_local, lam0, cost0)
-        if cfg.unroll:
-            # straight-line LM (dynamic loop steps pay a fixed sequencer
-            # sync per step on TPU runtimes — see gauss_newton.optimize)
-            for _ in range(cfg.max_iterations):
-                carry = body(0, carry)
-            prob, _, cost = carry
-        else:
-            prob, _, cost = jax.lax.fori_loop(
-                0, cfg.max_iterations, body, carry
-            )
+        prob, _, cost = jax.lax.fori_loop(0, cfg.max_iterations, body, carry)
         return prob, cost
 
     sharding = jax.tree.map(lambda s: NamedSharding(mesh, s), specs)

@@ -3,10 +3,10 @@
 The reference integrates rays into supereight2 octree submaps with OpenMP
 threads on one host (okvis_multisensor_processing/src/
 SubmappingInterface.cpp:771-902, README.md:447 OMP_NUM_THREADS=2).  The
-TPU-native design shards the RAY BATCH over the mesh axis: each device
+design here shards the RAY BATCH over the mesh axis: each device
 samples and scatters its shard of rays into local accumulators, the
-touched-brick mask and the log-odds accumulators all-reduce over ICI
-(`lax.psum`), and the brick allocation + mean update then run replicated
+touched-brick mask and the log-odds accumulators all-reduce across the
+mesh (`lax.psum`), and the brick allocation + mean update then run replicated
 and deterministically — every device holds an identical `BrickSubmap`
 afterwards, so interpolation/ICP can read the map on any device without a
 broadcast (BASELINE target "submaps sharded across N hosts").

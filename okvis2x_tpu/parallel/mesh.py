@@ -4,7 +4,7 @@ The reference has no distributed capability (SURVEY §2.11) — parallelism is
 std::thread + OpenMP.  Here distribution is a first-class axis: a 1-D
 `jax.sharding.Mesh` over all local/global devices, with observation tables
 and landmark blocks sharded along it and the reduced camera system psum'd
-over ICI (SURVEY §7.1 "Distribution").
+across the mesh (SURVEY §7.1 "Distribution").
 """
 
 from __future__ import annotations

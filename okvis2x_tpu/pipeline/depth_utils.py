@@ -1,6 +1,6 @@
 """Depth-map conversion and registration helpers.
 
-TPU-native equivalent of the reference's DepthUtils
+JAX equivalent of the reference's DepthUtils
 (okvis_multisensor_processing/include/okvis/DepthUtils.hpp): raw↔metric
 depth conversion and re-registration of a depth image taken by one camera
 into the image plane of another camera (the RGB-D "depth registration"

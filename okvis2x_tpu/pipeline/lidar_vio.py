@@ -93,8 +93,8 @@ class LidarVioPipeline:
         t1 = float(sweep.t_point[-1])
         fa, fb = self._bracketing_states(t0, t1)
 
-        # points into the sensor frame S (host math — a device program
-        # execution costs ~30 ms fixed on the remote runtime)
+        # points into the sensor frame S (host math: cheaper than a device
+        # dispatch and sync)
         from okvis2x_tpu.core import se3np
 
         R_SL = se3np.quat_to_matrix(self.T_SL[3:7])

@@ -148,8 +148,9 @@ class ThreadedRunner:
     """Reader thread streaming dataset events into the pipeline.
 
     The producer loads + decodes images ahead of the consumer (the only
-    part of the reference's thread pyramid that helps a host-driven TPU
-    pipeline); IMU/GPS/LiDAR events pass through in timestamp order.
+    part of the reference's thread pyramid that helps a host-driven
+    accelerator pipeline); IMU/GPS/LiDAR events pass through in timestamp
+    order.
     """
 
     def __init__(self, dataset, pipeline, queue_size: int = 8,

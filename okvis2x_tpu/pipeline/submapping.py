@@ -28,7 +28,7 @@ from okvis2x_tpu.core import se3
 from okvis2x_tpu.mapping import icp_factor
 from okvis2x_tpu.mapping import submap as sm_mod
 
-# best available float (f64 under x64/CPU validation runs, f32 on TPU),
+# best available float (f64 under x64/CPU validation runs, f32 on the GPU),
 # resolved once so pose math never emits truncation warnings
 _FDT = jax.dtypes.canonicalize_dtype(jnp.float64)
 

@@ -11,7 +11,7 @@ interpolating its pose (`integrationLoop` + `checkForAvailableData`
 submap lifecycle decisions, occupancy integration, re-anchoring on
 loop-closure corrections (`processSupereightFrames` :710-963).
 
-Redesign notes (TPU-first): the integration itself is the jitted ray/depth
+Redesign notes: the integration itself is the jitted ray/depth
 batch program of `pipeline/submapping.py`; Python threads only overlap
 host-side assembly and device dispatch, exactly like the reference's CPU
 threads overlap data assembly with supereight integration.

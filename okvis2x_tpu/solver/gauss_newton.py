@@ -8,7 +8,7 @@ The Ceres replacement (reference: okvis_ceres `ViGraph::optimise` ->
     reference's analytic `EvaluateWithMinimalJacobians`);
   * frame/extrinsic Jacobians are scattered into dense rows of a tall
     (n_res, P) matrix — P = K*15 + C*6 is small (≤ a few hundred), so
-    H_ff = J^T J is one MXU-shaped matmul;
+    H_ff = J^T J is one dense matmul;
   * landmarks are eliminated with a batched Schur complement:
     3x3 block inverses + one einsum, never materialising the full system;
   * robustification is IRLS: residual/Jacobian scaled by sqrt(rho'(||r||^2))
@@ -88,23 +88,15 @@ class SolverConfig(NamedTuple):
     # config (mapping.submap.SubmapConfig or mapping.brick.BrickConfig) of
     # problem.icp_map.  None compiles no ICP kernels.
     icp_cfg: object = None
-    # Unroll the LM loop into straight-line code.  On TPU runtimes every
-    # dynamic loop step whose body launches tensor kernels pays a fixed
-    # ~0.6 ms sequencer sync, which dominates the ~0.3 ms of actual work per
-    # iteration at realtime-window shapes; unrolling removes it entirely
-    # (max_iterations is always static).  Costs ~max_iterations x the body
-    # compile time, so keep False on CPU test hosts.
-    unroll: bool = False
     # Early exit on convergence (≙ CeresIterationCallback trimming only
     # CONVERGED iterations, okvis_ceres/include/okvis/ceres/
     # CeresIterationCallback.hpp:80): > 0 switches the LM loop to a
     # lax.while_loop that stops once an accepted step's relative cost
-    # decrease falls below this tolerance.  At realtime-window shapes each
-    # iteration costs ~1.7-2.3 ms of device time, so stopping at the
-    # typical 3-5 (warm-started) instead of the compiled max of 10 saves
-    # ~10 ms/frame — and trims only iterations that were not improving the
-    # estimate, unlike the coarse 3/5/10 iteration buckets (which parked
-    # the estimator on an accuracy cliff, round-4 notes).
+    # decrease falls below this tolerance.  Warm-started window solves
+    # typically stop at 3-5 instead of the compiled max of 10, trimming
+    # only iterations that were not improving the estimate, unlike coarse
+    # 3/5/10 iteration buckets (which parked the estimator on an accuracy
+    # cliff).
     early_exit_rel: float = 0.0
     early_min_iterations: int = 2
     # Robust loss on relative-pose (pose-graph) edges — the pose-graph
@@ -127,11 +119,10 @@ def _frame_rows(p: BAProblem, blocks, tgw: jax.Array | None = None) -> jax.Array
     """Assemble batched dense Jacobian rows (n, r, P) from per-frame blocks.
 
     `blocks` is a list of (J (n, r, 15), frame_idx (n,)) pairs; each block is
-    placed at column frame_idx*15 with a one-hot contraction (an MXU matmul)
-    instead of a vmapped dynamic_update_slice — scatters serialise on TPU and
-    cost ~0.25 ms per factor family at window sizes where the whole
-    linearization should take ~0.1 ms.  `tgw` optionally fills the trailing
-    4-dof T_GW columns."""
+    placed at column frame_idx*15 with a one-hot contraction (a matmul)
+    instead of a vmapped dynamic_update_slice.  The choice was made where
+    scatters serialise; it is untimed against the scatter form on the
+    H100.  `tgw` optionally fills the trailing 4-dof T_GW columns."""
     K, C = p.K, p.C
     J0, _ = blocks[0]
     n, r = J0.shape[:2]
@@ -164,9 +155,8 @@ def _pad15(J: jax.Array, col0: int) -> jax.Array:
 def _linearize_reprojection(p: BAProblem, cams: StackedCameras):
     """Returns per-obs (r (N,2), Jrow (N,2,P), Jh (N,2,3), valid (N,)).
 
-    The dense rows are assembled with one-hot matmuls instead of scatters —
-    scatters serialise on TPU, while the one-hot contraction is an MXU
-    matmul (this is where the realtime budget lives)."""
+    The dense rows are assembled with one-hot matmuls instead of scatters
+    (see _frame_rows)."""
     K, C, P = p.K, p.C, p.P
     dtype = p.T_WS.dtype
 
@@ -478,7 +468,7 @@ def linearize(p: BAProblem, cams: StackedCameras, cfg: SolverConfig) -> Lineariz
     lm_free_f = lm_free.astype(dtype)
     Jh_o = Jh_o * lm_free_f[p.obs_lm][:, None, None]
 
-    # landmark blocks via one-hot matmuls (scatter-free on TPU)
+    # landmark blocks via one-hot matmuls (scatter-free, see _frame_rows)
     onehot_l = jax.nn.one_hot(p.obs_lm, L, dtype=dtype)  # (N, L)
     HtJ = jnp.einsum("nri,nrj->nij", Jh_o, Jh_o)  # (N,3,3)
     H_ll = jnp.einsum("nl,nij->lij", onehot_l, HtJ)
@@ -507,8 +497,8 @@ def linearize(p: BAProblem, cams: StackedCameras, cfg: SolverConfig) -> Lineariz
         W = W + jnp.einsum("nl,npi->lpi", onehot_l, Wd)
 
     # IMU links, priors, relative-pose and GNSS factors: every small dense-row
-    # family masked then stacked into ONE (M, P) system — a single MXU matmul
-    # instead of four ~0.25 ms kernel chains.  Families with zero static
+    # family masked then stacked into ONE (M, P) system — a single matmul
+    # instead of four kernel chains.  Families with zero static
     # capacity are skipped at trace time: their residual chains emit
     # hundreds of tiny unfused kernels (jacfwd through quaternion math),
     # pure overhead when a window carries no such factors.
@@ -652,8 +642,8 @@ def compute_cost(p: BAProblem, cams: StackedCameras, cfg: SolverConfig) -> jax.A
 def _inv3x3(m: jax.Array) -> jax.Array:
     """Closed-form batched 3x3 inverse (adjugate/determinant).
 
-    Pure elementwise ops that fuse into neighbouring kernels — XLA's batched
-    LU `linalg.inv` costs ~6x more at (L, 3, 3) shapes on TPU."""
+    Pure elementwise ops that fuse into neighbouring kernels, where XLA's
+    batched LU `linalg.inv` would be a separate factorisation."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
     g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
@@ -703,12 +693,11 @@ def solve_normal_equations(
     diag = jnp.diag(H_red)
     H_red = H_red + jnp.diag(lam * diag + 1e-12)
 
-    # Jacobi-scaled inverse-multiply.
-    # NOTE: jnp.linalg.inv lowers to a fast XLA path on TPU whereas
-    # cholesky/triangular_solve cost ~0.4 ms at this size (sequential
-    # panel factorisation).  The raw reduced camera system's condition
-    # number grows with node count (mixed px/rad/m/s units); unscaled f32
-    # inversion degrades visibly beyond ~80 frames (final BA), while the
+    # Jacobi-scaled inverse-multiply (chosen over cholesky/triangular_solve
+    # on another backend; untimed against them on the H100).  The raw
+    # reduced camera system's condition number grows with node count
+    # (mixed px/rad/m/s units); unscaled f32 inversion degrades visibly
+    # beyond ~80 frames (final BA), while the
     # symmetrically scaled system D H D (unit diagonal) stays solvable
     # (SURVEY §7.3 hard part 5: f32 + scaling instead of f64).
     d = jnp.sqrt(jnp.maximum(jnp.abs(jnp.diag(H_red)), 1e-20))
@@ -718,13 +707,10 @@ def solve_normal_equations(
     if P <= 1024:
         dy = jnp.linalg.inv(Hs) @ bs
     else:
-        # batch/final-BA scale: XLA's TPU LU factorisation overruns scoped
-        # vmem beyond ~8k unknowns (and its fusion interactions inflate
-        # the whole-program HBM footprint well before that); an O(P^3)
-        # factorisation is the wrong tool anyway — conjugate gradients on
-        # the Jacobi-scaled damped reduced camera system are
-        # bandwidth-bound matvecs the MXU streams at full speed (the
-        # standard large-scale BA recipe: sparse Schur + PCG).
+        # batch/final-BA scale: an O(P^3) factorisation is the wrong tool
+        # — conjugate gradients on the Jacobi-scaled damped reduced camera
+        # system are bandwidth-bound matvecs (the standard large-scale BA
+        # recipe: sparse Schur + PCG).
         def cg_step(state, _):
             x, r, pv, rs = state
             Hp = Hs @ pv
@@ -762,9 +748,8 @@ def optimize(
     Returns the optimised problem and the final robust cost.
 
     The loop carries ONLY the mutable parameters (poses, speed/bias,
-    extrinsics, landmarks, T_GW) — the full problem pytree has ~65 leaves
-    and scan/fori carries pay a per-leaf copy cost per iteration on TPU
-    backends, which dominated the solve before this split.
+    extrinsics, landmarks, T_GW) — the full problem pytree has ~65 leaves,
+    and a loop carry may copy every leaf each iteration.
     """
 
     def inject(params):
@@ -824,39 +809,22 @@ def optimize(
                 & (rel < tol)
             )
 
-        if cfg.unroll:
-            # unrolled variant: each compiled iteration is wrapped in a
-            # lax.cond on the done flag — a skipped iteration costs one
-            # branch check instead of a linearize+solve, and the straight
-            # -line schedule avoids the while_loop's per-step sequencer
-            # sync (measured ~1.5 ms/step on the remote TPU runtime)
-            done = jnp.bool_(False)
-            for i in range(cfg.max_iterations):
-                prev_best = carry[3]
-                carry = jax.lax.cond(
-                    done, lambda c: c, lambda c: body(0, c), carry
-                )
-                done = done | exit_test(i, prev_best, carry[3])
-            params, backup, _, best_cost = carry
-        else:
-            def w_cond(state):
-                i, done, _ = state
-                return (i < cfg.max_iterations) & ~done
+        # a rolled while_loop: unrolled iterations compiled 5-6x slower on
+        # an H100 and solved no faster
+        def w_cond(state):
+            i, done, _ = state
+            return (i < cfg.max_iterations) & ~done
 
-            def w_body(state):
-                i, _, carry = state
-                prev_best = carry[3]
-                carry = body(i, carry)
-                done = exit_test(i, prev_best, carry[3])
-                return i + 1, done, carry
+        def w_body(state):
+            i, _, carry = state
+            prev_best = carry[3]
+            carry = body(i, carry)
+            done = exit_test(i, prev_best, carry[3])
+            return i + 1, done, carry
 
-            _, _, carry = jax.lax.while_loop(
-                w_cond, w_body, (jnp.int32(0), jnp.bool_(False), carry)
-            )
-            params, backup, _, best_cost = carry
-    elif cfg.unroll:
-        for _ in range(cfg.max_iterations):
-            carry = body(0, carry)
+        _, _, carry = jax.lax.while_loop(
+            w_cond, w_body, (jnp.int32(0), jnp.bool_(False), carry)
+        )
         params, backup, _, best_cost = carry
     else:
         params, backup, _, best_cost = jax.lax.fori_loop(

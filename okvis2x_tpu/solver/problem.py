@@ -1,6 +1,6 @@
 """Bundle-adjustment problem containers (struct-of-arrays, fixed capacity).
 
-This is the TPU-native replacement for the reference's `okvis::ViGraph`
+This is the JAX replacement for the reference's `okvis::ViGraph`
 residual-block bookkeeping (okvis_ceres/include/okvis/ViGraph.hpp:787-838):
 instead of a `ceres::Problem` holding pointer-linked parameter blocks and
 residual blocks, the whole sliding-window problem is a set of fixed-capacity
@@ -149,7 +149,7 @@ def empty_problem(
     """Allocate an all-invalid problem of the given capacities.
 
     The dtype is resolved ONCE here (f64 only where x64 is enabled, i.e.
-    CPU hosts; f32 on TPU) so the precision choice is explicit rather than
+    CPU hosts; f32 on the GPU) so the precision choice is explicit rather than
     a per-array truncation warning."""
     import jax
 

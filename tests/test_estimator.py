@@ -364,7 +364,7 @@ def test_long_keyframe_spans_chain_merge():
 
 @pytest.mark.slow
 def test_f32_matches_f64_over_long_run():
-    """SURVEY §7.3 hard part 5: the production TPU path runs the estimator
+    """SURVEY §7.3 hard part 5: the production GPU path runs the estimator
     in f32 (+ Jacobi scaling and iterative refinement in the reduced
     solve); validate that over a 60 s trajectory the f32 ATE stays at the
     f64 solution's level rather than drifting off numerically."""

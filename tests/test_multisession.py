@@ -196,3 +196,59 @@ def test_import_component_frames_remaps_negative():
     assert e["i"] == -1 and e["j"] == -2
     # timestamps shifted before the session
     assert est.archive_frames[-1].timestamp < -1e5
+
+
+def _mutual_reference(q, vq, d, vd, thr):
+    """numpy mutual best matches under the distance gate."""
+    D = np.unpackbits(
+        (q[:, None, :] ^ d[None, :, :]).view(np.uint8), axis=-1
+    ).sum(-1).astype(np.int64)
+    D[~vq] = 10**6
+    D[:, ~vd] = 10**6
+    idx = D.argmin(1)
+    back = D.argmin(0)
+    ok = vq & vd[idx] & (back[idx] == np.arange(len(q)))
+    ok &= D[np.arange(len(q)), idx] <= thr
+    return idx, ok
+
+
+def test_relocalisation_matcher_matches_batched_loop_closure_matcher():
+    """_geometric_verify (relocalisation, one candidate) and the batched
+    loop-closure verifier (_lc_match_fn over several candidates) give the
+    same mutual matches for one record pair, equal to numpy's."""
+    rng = np.random.default_rng(4)
+    cam = _cam()
+    est_cfg = EstimatorConfig(cap_frames=6, cap_landmarks=64, cap_obs=128,
+                              cap_imu_links=5, cap_rel_edges=8)
+    T_SC = np.array([[-0.05, 0, 0, 0, 0, 0, 1.0], [0.05, 0, 0, 0, 0, 0, 1.0]])
+    pipe = VioPipeline([cam, cam], T_SC, est_cfg,
+                       PipelineConfig(vocab_k=32, max_keypoints=96))
+    N, C = 96, 2
+    rec = rng.integers(0, 2**32, (C, N, 12), dtype=np.uint32)
+    rec_v = rng.random((C, N)) < 0.9
+    # candidate: the query's descriptors with a few bits flipped, shuffled,
+    # plus unrelated rows
+    cand = rng.integers(0, 2**32, (C, N, 12), dtype=np.uint32)
+    perm = rng.permutation(N)
+    near = rec[:, perm] ^ (rng.random((C, N, 12)) < 0.03).astype(np.uint32)
+    cand[:, : N // 2] = near[:, : N // 2]
+    cand_v = rng.random((C, N)) < 0.9
+    match = pipe._lc_match_fn()
+    # _geometric_verify's call: every camera of one candidate record
+    mi1, ok1 = (np.asarray(a)[0] for a in match(rec, rec_v, cand[None],
+                                                  cand_v[None]))
+    # _geometric_verify_batch's call: the same record among distractors
+    others = rng.integers(0, 2**32, (2, C, N, 12), dtype=np.uint32)
+    batch = np.concatenate([others[:1], cand[None], others[1:]])
+    batch_v = np.concatenate([np.ones((1, C, N), bool), cand_v[None],
+                              np.ones((1, C, N), bool)])
+    miB, okB = (np.asarray(a)[1] for a in match(rec, rec_v, batch, batch_v))
+    thr = pipe.cfg.matching_threshold
+    for c in range(C):
+        idx_ref, ok_ref = _mutual_reference(rec[c], rec_v[c], cand[c],
+                                            cand_v[c], thr)
+        assert ok_ref.sum() > N // 4
+        np.testing.assert_array_equal(ok1[c], ok_ref)
+        np.testing.assert_array_equal(okB[c], ok_ref)
+        np.testing.assert_array_equal(mi1[c][ok_ref], idx_ref[ok_ref])
+        np.testing.assert_array_equal(miB[c][ok_ref], idx_ref[ok_ref])

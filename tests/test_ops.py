@@ -1,12 +1,12 @@
-"""Pallas kernel tests (interpret mode on CPU; compiled on TPU)."""
+"""Packed-descriptor Hamming matching (frontend/matcher.py) against numpy
+bit counts."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
-
-from okvis2x_tpu.frontend.descriptor import DESC_BITS
-from okvis2x_tpu.ops import hamming_pallas
 import pytest
+
+from okvis2x_tpu.frontend import matcher
+from okvis2x_tpu.frontend.descriptor import DESC_BITS
 
 pytestmark = pytest.mark.smoke
 
@@ -24,8 +24,8 @@ def test_packed_hamming_matches_reference():
     bits_q = RNG.integers(0, 2, (256, DESC_BITS))
     bits_d = RNG.integers(0, 2, (512, DESC_BITS))
     D = np.asarray(
-        hamming_pallas.hamming_matrix_packed(
-            jnp.asarray(pack(bits_q)), jnp.asarray(pack(bits_d)), interpret=True
+        matcher.hamming_matrix_packed(
+            jnp.asarray(pack(bits_q)), jnp.asarray(pack(bits_d))
         )
     )
     D_ref = (bits_q[:, None, :] != bits_d[None, :, :]).sum(-1)
@@ -38,9 +38,11 @@ def test_best_matches_packed():
     for i in range(256):
         idx = RNG.integers(0, DESC_BITS, 7)
         bits_d[i, idx] ^= 1
-    idx, d, ok = hamming_pallas.best_matches_packed(
-        jnp.asarray(pack(bits)), jnp.asarray(pack(bits_d)), interpret=True
+    valid = np.ones(256, bool)
+    m = matcher.match_packed_mutual(
+        jnp.asarray(pack(bits)), jnp.asarray(valid),
+        jnp.asarray(pack(bits_d)), jnp.asarray(valid),
     )
-    assert (np.asarray(idx) == np.arange(256)).all()
-    assert np.asarray(d).max() <= 7
-    assert bool(np.asarray(ok).all())
+    assert (np.asarray(m.idx_b) == np.arange(256)).all()
+    assert np.asarray(m.dist).max() <= 7
+    assert bool(np.asarray(m.valid).all())

@@ -3,8 +3,8 @@
 These tests drive ``tools/slam_bench.py`` — the reference-scale benchmark at
 the EuRoC operating point (752x480 stereo @ 20 Hz, 200 Hz IMU, 704
 keypoints; ≙ config/euroc/okvis2.yaml:74-99) — in a SUBPROCESS so it runs on
-the default platform (the real TPU when the session has one; conftest's CPU
-forcing applies only in-process).  This is the production f32 path, so a
+the default platform (the GPU when there is one; conftest's CPU forcing
+applies only in-process).  This is the production f32 path, so a
 passing run also validates f32-on-device numerics over the full circuit
 (SURVEY §7.3 hard-part 5).
 
@@ -20,9 +20,9 @@ Asserted behaviour (≙ the reference's signature end-to-end properties):
     provenance (the 65 s single-revisit window asserted by bench.py
     still holds 0.05 m after final BA).
 
-The circuit dataset is cached under /tmp keyed by its parameters — the
-first run pays a one-off ~30 min render on a 2-core host; subsequent runs
-(and bench.py, which uses the same parameters) reuse it.
+The circuit dataset is cached in the temporary directory keyed by its
+parameters — the first run pays a one-off render; subsequent runs (and
+bench.py, which uses the same parameters) reuse it.
 """
 
 import json
@@ -39,8 +39,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def circuit_result():
     env = dict(os.environ)
     # drop the suite's CPU/x64 forcing: the subprocess should exercise the
-    # production platform (TPU if the session has one, else CPU f32)
+    # production platform (the GPU if there is one, else CPU f32)
     env.pop("XLA_FLAGS", None)
+    env.pop("JAX_PLATFORMS", None)
     out = subprocess.run(
         [sys.executable, os.path.join(REPO, "tools", "slam_bench.py"),
          "--duration", "185"],
@@ -69,16 +70,12 @@ def test_circuit_loop_closures(circuit_result):
 @pytest.mark.slow
 def test_circuit_ate_operating_point(circuit_result):
     # drift bounds over the ~370 m / 185 s / 4-lap circuit, f32 on-device.
-    # Measured operating point (PROOF_r05.json, clean session TPU runs):
-    # online 0.28-0.32 m (the online log keeps each frame's as-estimated
-    # pose — historical drift before a closure is never rewritten), final
-    # 0.17-0.18 m after the fixpoint pose-graph/segment final BA (0.05% of
-    # path).  Round 4 recorded online 1.26 m; the round-5 archived-landmark
-    # correction + scatter guards brought it to 0.31 m.  The bounds leave
-    # ~3x headroom for host contention (async correction timing degrades
-    # online ATE when the frame loop is starved — measured 0.79 m with a
-    # concurrent CPU-bound job); the 65 s single-revisit window (bench.py)
-    # holds 0.09 m online / 0.04 m final.
+    # Earlier runs of this circuit held online ATE near 0.3 m (the online
+    # log keeps each frame's as-estimated pose — historical drift before a
+    # closure is never rewritten) and final ATE near 0.17 m after the
+    # fixpoint pose-graph/segment final BA.  The bounds leave ~3x headroom
+    # for host contention: async correction timing degrades online ATE
+    # when the frame loop is starved.
     ate_online = circuit_result["ate_online_m"]
     ate_final = circuit_result["ate_final_m"]
     assert ate_online <= 1.0, circuit_result

@@ -43,7 +43,7 @@ def bench_window_ba(mesh, n_obs, reps=3):
     from okvis2x_tpu.testing import synthetic_window_problem
 
     p, cams = synthetic_window_problem(K=8, L=704, N=n_obs, dtype=jnp.float32)
-    cfg = gn.SolverConfig(max_iterations=3, unroll=True)
+    cfg = gn.SolverConfig(max_iterations=3)
     out, cost = optimize_distributed(p, cams, cfg, mesh)
     jax.block_until_ready(cost)
     t0 = time.perf_counter()
@@ -143,7 +143,7 @@ def comm_models(n_dev, n_obs_weak, n_rays_weak):
     P = 15 * K + 6 * C + 7
     ba_payload = f * (P * P + P + 1 + L * 9 + L * 3 + L * P * 3)
     # per-obs-row linearise ~ (2 residual rows) x (P + 3) jacobian cols,
-    # plus the one-hot MXU contractions for the landmark blocks
+    # plus the one-hot matmul contractions for the landmark blocks
     ba_flops_row = 2 * (P + 3) * 8
     # ---- pose graph PCG: K=512 nodes, E = K-1 + K/4 edges
     Kp, it, cg = 512, 2, 24
